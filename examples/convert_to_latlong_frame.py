@@ -1,6 +1,6 @@
 """Rotate vector fields between the tripolar (native) frame and the geographic frame.
 
-TPU-framework analog of the reference's ``examples/convert_to_latlong_frame.jl``: a
+JAX analog of the reference's ``examples/convert_to_latlong_frame.jl``: a
 purely zonal geographic velocity (u=1, v=0) is rotated into the tripolar grid's native
 frame (what you'd use to initialize a zonal jet on the grid), then rotated back —
 demonstrating the round trip is the identity. The rotation assumes local orthogonality

@@ -1,5 +1,5 @@
 """Distributed Bickley jet: the reference's examples/distributed_bickley_jet.jl
-(320x240, y-partitioned over 4 ranks), TPU-native.
+(320x240, y-partitioned over 4 ranks), in JAX.
 
 Instead of MPI ranks, the state is y-sharded over a JAX device mesh; the step runs
 under shard_map with ppermute halo exchange (parallel/distributed.py). On a machine
@@ -17,13 +17,6 @@ from __future__ import annotations
 
 import argparse
 import time
-
-
-def device_sync(tree):
-    # fetch-sync barrier (block_until_ready may not wait on the remote backend);
-    # imported lazily because the package lands on sys.path only in __main__
-    from orthogonalsphericalshellgrids_tpu.utils.profiling import device_sync as ds
-    return ds(tree)
 
 
 def main():
@@ -90,7 +83,7 @@ def main():
         writer = ShardedOutputWriter(args.output, {}, dist_model)
 
     s = fn(dist_state, args.dt)  # compile
-    device_sync(s)
+    jax.block_until_ready(s)
     t0 = time.time()
     for i in range(args.steps):
         s = fn(s, args.dt)
@@ -101,7 +94,7 @@ def main():
             if writer is not None:  # each shard's interior, no global gather
                 writer.write((i + 1) * args.dt, {"u": s.u, "v": s.v, "c": s.c,
                                                  "eta": s.eta})
-    device_sync(s)
+    jax.block_until_ready(s)
     el = time.time() - t0
     print(f"{args.steps} steps on {n_total} devices ({args.decomp}): {el:.2f}s "
           f"({args.nx*args.ny*args.steps/el/1e6:.1f} M gridpoint-steps/s)")

@@ -1,6 +1,6 @@
 """Visualize a tripolar grid.
 
-TPU-framework analog of the reference's ``examples/visualize_tripolar_grid.jl``:
+JAX analog of the reference's ``examples/visualize_tripolar_grid.jl``:
 generate a 60x30 tripolar grid with the north singularities moved to 60N, convert the
 Face-Face and Center-Center nodes to unit-sphere cartesian coordinates, and render the
 two hemispheres side by side (matplotlib replaces GLMakie). The key feature to see:

@@ -7,7 +7,7 @@ the panel's (``test/test_tripolar_grid.jl:36-76``).  Only the panel's Face-Face
 the conformal mapping square -> sphere of Rancic, Purser & Mesinger (1996, QJRMS
 122, Appendix B): the Taylor series ``W(Z) = sum_k A_k Z^k`` with the published
 30-coefficient table, evaluated host-side in float64 at grid-build time (this is
-one-shot precompute, never on the TPU hot path).
+one-shot precompute, never on the device hot path).
 
 Construction (derived from the Rancic normalisation, not translated from any
 implementation):

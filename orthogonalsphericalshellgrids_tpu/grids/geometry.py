@@ -1,6 +1,6 @@
 """Spherical geometry primitives used at grid-construction time.
 
-TPU-native reimplementation of the geometry utilities the reference pulls from
+JAX reimplementation of the geometry utilities the reference pulls from
 Distances.jl and Oceananigans.Grids (see reference usage at
 ``src/tripolar_grid_utils.jl:13-43`` and ``src/OrthogonalSphericalShellGrids.jl:12-14``):
 

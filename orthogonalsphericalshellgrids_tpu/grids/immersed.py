@@ -1,6 +1,6 @@
 """Immersed boundary: grid-fitted bottom masking (SURVEY.md O8).
 
-TPU-native equivalent of ``ImmersedBoundaryGrid(grid, GridFittedBottom(bottom_height))``
+JAX equivalent of ``ImmersedBoundaryGrid(grid, GridFittedBottom(bottom_height))``
 as the reference examples use it to mask the two north singularities and Antarctica
 (``examples/bickley_jet.jl:26-29``, ``test/test_tripolar_grid.jl:62-66``). Instead of a
 wrapper grid type with immersed-cell predicates dispatched per point, the mask is three
@@ -82,7 +82,7 @@ def make_immersed_boundary(grid: TripolarGrid, bottom_height: Callable | Any) ->
                             south="zero_gradient", xp=np, inplace=True)  # bot is owned
 
     # All derived arrays computed host-side in f64, shipped as ONE stacked transfer and
-    # split in ONE jit (remote-TPU eager ops pay a compile round-trip each).
+    # split in ONE jit (each eager op would pay a compile of its own).
     h_c = np.clip(z1 - np.maximum(bot, z0), 0.0, None)
     h_u = np.minimum(h_c, np.roll(h_c, 1, axis=-1))
     h_v = np.minimum(h_c, np.roll(h_c, 1, axis=-2))

@@ -18,15 +18,15 @@ that configuration natively:
   kinematic pressure ``p(z) = -∫_z^0 b dz'`` enters the horizontal momentum equations
   — the baroclinic pressure gradient,
 - the same split-explicit barotropic engine as the single-layer model (the embedded
-  ``HydrostaticModel`` supplies widened-halo grids, SM05 weights and the Pallas
-  time-tiled kernel): the depth-integrated flow (η, U, V) is subcycled with the
+  ``HydrostaticModel`` supplies widened-halo grids, SM05 weights and the
+  barotropic subcycle): the depth-integrated flow (η, U, V) is subcycled with the
   thickness-weighted baroclinic forcing, then the layer velocities' depth mean is
   replaced by the barotropic average (the standard split-explicit corrector),
 - grid-fitted 3-D masking from the same ``bottom_height`` (a layer cell is fluid when
   its center sits above the bottom — full-cell GridFittedBottom semantics).
 
 Layout: layer axis LEADING — fields are ``(Nz, Ny + 2Hy, Nx + 2Hx)`` with k = 0 the
-SURFACE layer and k increasing downward, so (y, x) stay on the TPU sublane/lane
+SURFACE layer and k increasing downward, so (y, x) stay the two minor (contiguous)
 dimensions and every horizontal stencil/halo-fill broadcasts unchanged.
 """
 
@@ -41,16 +41,13 @@ import numpy as np
 
 from ..grids.tripolar import TripolarGrid
 from ..ops import zipper
-from ..ops.closures import _ratio as _cratio
-from ..ops.pallas_adv import pack_adv_statics_layered as _adv_pack
 from ..ops.advection import (centered_faces_from_centers, tracer_faces,
                              weno5_upwind_centers_from_faces,
                              weno5_upwind_faces_from_centers)
 from ..ops.location import CC, CF, FC
 from ..ops.spmd2d import Spmd2D
 from ..ops.operators import dxc, dxf, dyc, dyf, ixc, ixf, iyc, iyf
-from .hydrostatic import (HydrostaticModel, _CHI, _fill, _fill_aliased,
-                          _fill_batch, _fill_interpret, _inv, _unfill_aliased,
+from .hydrostatic import (HydrostaticModel, _CHI, _fill, _fill_batch, _inv,
                           barotropic_substeps, crop_ext, embed_ext, make_model)
 from .split_explicit import SplitExplicitFreeSurface
 
@@ -58,35 +55,6 @@ __all__ = [
     "LayeredState", "LayeredModel", "make_layered_model", "layered_initial_state",
     "layered_step", "layered_multi_step", "vertical_velocity", "layered_cfl_dt",
 ]
-
-# Switch for the fused predictor/corrector Pallas pass (ops/pallas_corr.py).
-# NEGATIVE RESULT, round 5 (kept opt-in so it isn't retried): a clean
-# interleaved A/B through bench_layered.py on v5e measured the kernel at
-# 0.737 G pts/s (probes 682-734 GB/s) vs 0.835 G (probes 620-705) for the XLA
-# chain — a ~1.6 ms/step LOSS. The XLA glue fuses into its producers/consumers
-# (the AB2 extrapolation, masks and updates never materialize as separate
-# passes), while the kernel forces a hard boundary: 13 operand stacks must
-# materialize and re-stream through its block pipeline. Same mechanism as the
-# round-2 fused-tendency negative result. Set OSG_CORR_KERNEL=1 to re-measure.
-import os as _os
-
-USE_CORR_KERNEL = _os.environ.get("OSG_CORR_KERNEL", "0") == "1"
-
-# NEGATIVE RESULT, round 5 (kept opt-in so it isn't retried): accumulating
-# the z-resident column kernel's (dGu, dGv, dGc) INSIDE the mom/adv window
-# kernels (their ``acc`` operand) and folding the tendency's closing
-# mask multiply into the momentum kernel (``mask_out``), instead of the XLA
-# add/mask passes, LOSES on v5e: interleaved A/B through
-# benchmarks/ab_acc_fold.py measured 11.94 ms/step with both folds vs
-# 11.48 ms without (probes 644-754 GB/s; acc alone 11.66 vs 11.47). Total
-# HBM bytes are CONSERVED by the move — XLA already fuses the adds and the
-# mask into the AB2/predictor consumers, so no separate full-stack passes
-# existed to eliminate — while the window kernels are DMA-bound at the
-# margin, so the moved reads do not hide under their compute. Same
-# conserved-traffic mechanism as the corr-kernel loss above. Set
-# OSG_ACC_FOLD=1 to re-measure.
-ACC_FOLD = _os.environ.get("OSG_ACC_FOLD", "0") == "1"
-
 
 # --------------------------------------------------------------------------------------
 # Pytrees
@@ -132,21 +100,6 @@ class LayeredModel:
     # deepest-wet-layer indicator masks (bottom drag acts there)
     bot_u: Any
     bot_v: Any
-    # prefactored static planes for the VMEM-resident tracer-advection kernel,
-    # stacked layer-major by ops/pallas_adv.pack_adv_statics_layered: per layer
-    # [IV = mask/(az*dz)] (+ the fused kappa_h Laplacian factors
-    # [K_u, K_v, K_c] when kappa_h > 0); the flux factors ride as the global
-    # dy_fc/dx_cf planes in vert_g + the static dz (masked-velocity identity)
-    adv_pack: Any
-    # momentum-kernel operand packs (ops/pallas_mom.py): (8, Yb, Xb) static
-    # metric planes; (Nz, L, Yb, Xb) per-layer Laplacian/drag factors (or None)
-    mom_static: Any
-    mom_lay: Any
-    # z-resident column-kernel operand packs (ops/pallas_vert.py): layer-major
-    # (Nz*S, Yb, Xb) [Au, Av, mask_c (, mask_u, mask_v)] + (3, Yb, Xb) globals
-    # [inv_az_cc, inv_dx_fc, inv_dy_cf]
-    vert_pack: Any
-    vert_g: Any
     # static metadata
     nz: int
     dz: tuple        # per-layer thickness [m], surface-first (uniform -> equal entries)
@@ -197,7 +150,7 @@ for _cls, _data, _meta in [
     (LayeredState, [f.name for f in dataclasses.fields(LayeredState)], []),
     (LayeredModel,
      ["baro", "mask_c3", "mask_u3", "mask_v3", "dzu", "dzv", "inv_h_u", "inv_h_v",
-      "bot_u", "bot_v", "adv_pack", "mom_static", "mom_lay", "vert_pack", "vert_g"],
+      "bot_u", "bot_v"],
      ["nz", "dz", "dzc", "zc", "forcing", "buoyancy", "kappa_v", "nu_v", "vert_impl",
       "tracer_names", "g_b", "alpha_T", "beta_S", "T0", "S0"]),
 ]:
@@ -230,15 +183,13 @@ def make_layered_model(
     kappa_h: float = 0.0,
     nu4_h: float = 0.0,
     kappa4_h: float = 0.0,
-    use_pallas: bool | None = None,
     tracer_advection: str = "weno5",
     momentum_advection: str = "weno_vector_invariant",
     forcing=None,           # {target: fn} with target in {"u","v","b"} | tracers;
                             # fn(λ°, φ°, z[m], t, fields) -> per-layer tendency term
-    block_rows: int | None = None,  # barotropic Pallas kernel row-block override
 ) -> LayeredModel:
     """Assemble the layered model. The embedded single-layer model provides the
-    barotropic engine (widened-halo grid, SM05 weights, Pallas subcycle kernel) and
+    barotropic engine (widened-halo grid, SM05 weights, subcycle) and
     the column-integrated immersed boundary; this adds per-layer (Nz, y, x) masks.
 
     The layer grid is the TripolarGrid's own z discretization: Nz uniform layers over
@@ -276,11 +227,10 @@ def make_layered_model(
     forcing = tuple(forcing.items())
     baro = make_model(grid, free_surface=free_surface, bottom_height=bottom_height,
                       coriolis=coriolis, rotation_rate=rotation_rate,
-                      use_pallas=use_pallas, tracer_advection=tracer_advection,
+                      tracer_advection=tracer_advection,
                       momentum_advection=momentum_advection,
                       wind_stress=wind_stress, bottom_drag=bottom_drag,
-                      nu_h=nu_h, kappa_h=kappa_h, nu4_h=nu4_h, kappa4_h=kappa4_h,
-                      block_rows=block_rows)
+                      nu_h=nu_h, kappa_h=kappa_h, nu4_h=nu4_h, kappa4_h=kappa4_h)
     nz = grid.Nz
     # Layer-center depths / thicknesses, k = 0 at the surface (stretched-aware).
     zc, dz_layers, dzc_layers = _layer_geometry(grid)
@@ -317,48 +267,6 @@ def make_layered_model(
     bot_u3 = bottom_indicator(mask_u3)
     bot_v3 = bottom_indicator(mask_v3)
 
-    # operand packs for the VMEM-resident momentum kernel (ops/pallas_mom.py):
-    # the 8 static metric planes, plus per-layer prefactored Laplacian/drag
-    # planes when those closures are active (fused into the kernel window)
-    mom_static = jnp.stack([
-        grid.dy_cf, grid.dx_fc, baro.inv_az_ff, baro.f_ff,
-        grid.dx_cf, baro.inv_dx_fc, grid.dy_fc, baro.inv_dy_cf])
-    lay_parts = []
-    if nu_h > 0.0:
-        m_ff_u = mask_u3 * jnp.roll(mask_u3, 1, axis=-2)
-        m_ff_v = mask_v3 * jnp.roll(mask_v3, 1, axis=-1)
-        lay_parts += [
-            nu_h * _cratio(grid.dy_cc, grid.dx_cc) * mask_c3,
-            nu_h * _cratio(grid.dx_ff, grid.dy_ff) * m_ff_u,
-            _inv(grid.az_fc) * mask_u3,
-            nu_h * _cratio(grid.dy_ff, grid.dx_ff) * m_ff_v,
-            nu_h * _cratio(grid.dx_cc, grid.dy_cc) * mask_c3,
-            _inv(grid.az_cf) * mask_v3,
-        ]
-    if baro.drag_type == "quadratic":
-        lay_parts += [baro.drag_coeff / dz3 * bot_u3,
-                      baro.drag_coeff / dz3 * bot_v3]
-    # stored flattened (Nz*L, Yb, Xb): plane k*L+i is layer k's i-th factor —
-    # the layout the kernel DMAs from, and the 3-D shape the row partitioner
-    # (parallel/distributed*.py) knows how to shard
-    mom_lay = (jnp.concatenate([jnp.stack([p[k] for p in lay_parts])
-                                for k in range(nz)])
-               if lay_parts else None)
-
-    # z-resident column-kernel packs (ops/pallas_vert.py): the u/v mask planes
-    # ride only when the explicit vertical viscosity needs them (S = 3); the
-    # flux factors are the GLOBAL dy_fc/dx_cf planes + static dz (u/v are
-    # masked prognostics — see pack_vert_statics)
-    from ..ops.pallas_vert import pack_vert_statics as _vert_pack_fn
-
-    vert_impl = vertical_time_discretization == "implicit"
-    if nu_v > 0.0 and not vert_impl:
-        vert_pack = _vert_pack_fn(mask_c3, mask_u3, mask_v3)
-    else:
-        vert_pack = _vert_pack_fn(mask_c3)
-    vert_g = jnp.stack([_inv(grid.az_cc), baro.inv_dx_fc, baro.inv_dy_cf,
-                        grid.dy_fc, grid.dx_cf])
-
     return LayeredModel(
         baro=baro,
         mask_c3=mask_c3,
@@ -366,19 +274,8 @@ def make_layered_model(
         mask_v3=mask_v3,
         bot_u=bot_u3,
         bot_v=bot_v3,
-        mom_static=mom_static,
-        mom_lay=mom_lay,
         dzu=dzu,
         dzv=dzv,
-        vert_pack=vert_pack,
-        vert_g=vert_g,
-        adv_pack=_adv_pack(
-            mask_c3 * _inv(grid.az_cc * dz3),
-            (kappa_h * _cratio(grid.dy_fc, grid.dx_fc) * mask_u3
-             if kappa_h > 0.0 else None),
-            (kappa_h * _cratio(grid.dx_cf, grid.dy_cf) * mask_v3
-             if kappa_h > 0.0 else None),
-            (_inv(grid.az_cc) * mask_c3 if kappa_h > 0.0 else None)),
         inv_h_u=_inv(jnp.sum(dzu, axis=0)),
         inv_h_v=_inv(jnp.sum(dzv, axis=0)),
         nz=nz,
@@ -487,8 +384,8 @@ def vertical_velocity(model: LayeredModel, u, v):
     must be halo-filled."""
     g = model.grid
     hdiv = (dxc(g.dy_fc * model.dzu * u) + dyc(g.dx_cf * model.dzv * v)) * _inv(g.az_cc)
-    # Σ_{j>=k} D_j as a native reverse cumsum: flip(cumsum(flip(x))) materializes two
-    # extra full-stack copies that XLA does not elide (measured on v5e at 1/4 degree)
+    # Σ_{j>=k} D_j as a native reverse cumsum (flip(cumsum(flip(x))) would
+    # materialize two extra full-stack copies)
     below = jax.lax.cumsum(hdiv, axis=0, reverse=True)
     return jnp.concatenate([-below, jnp.zeros_like(hdiv[:1])], axis=0)
 
@@ -584,7 +481,7 @@ def _implicit_vertical_solve(q, r, dz, dzc, mask):
     single-layer, SURVEY.md O5 note): unconditionally stable for any κ·dt/dz², so
     strong convective-adjustment-scale mixing doesn't constrain Δt. Solved by a
     vectorized Thomas algorithm unrolled over the (static, small) layer count — each
-    sweep step is one fused VPU pass over the (Y, X) planes, so the whole solve is
+    sweep step is one fused elementwise pass over the (Y, X) planes, so the whole solve is
     2·Nz elementwise plane ops with no gathers or transposes.
 
     Because Lz telescopes, ``Σ dz·x = Σ dz·q`` per column (content is conserved
@@ -661,122 +558,58 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
 
     # --- per-layer relative (+ planetary) vorticity and vector-invariant terms
     upwind_q = m.momentum_advection == "weno_vector_invariant"
-    # VMEM-resident momentum kernel on TPU (ops/pallas_mom.py): advective terms
-    # plus the nu_h Laplacian and quadratic drag fused into the same window —
-    # the corresponding XLA blocks below are skipped on this path
-    use_mom_kernel = m.use_pallas and upwind_q
-    use_vert_kernel = m.use_pallas and model.nz > 1
-    dgu = dgv = dgc_vert = None
-    if use_vert_kernel:
-        # z-resident column kernel FIRST (ops/pallas_vert.py): its additive
-        # (dGu, dGv, dGc) then accumulate INSIDE the compute-bound mom/adv
-        # window sweeps below (their ``acc`` operand) instead of through
-        # separate full-stack XLA add passes — same float order, ~3 fewer
-        # full-stack HBM traversals per step at the benchmark shape
-        from ..ops.pallas_vert import vertical_pallas
-        from .hydrostatic import _fill_interpret
+    zeta = (dxf(g.dy_cf * v) - dyf(g.dx_fc * u)) * m.inv_az_ff
+    q = zeta + m.f_ff if m.coriolis else zeta
 
-        names = model.tracer_names
-        cc = jnp.concatenate([c, b], axis=0) if model.has_b else c
-        eos = model.buoyancy == "linear_eos"
-        dgu, dgv, dgc_vert = vertical_pallas(
-            u, v, cc, model.vert_pack, model.vert_g,
-            dz=model.dz, dzc=model.dzc, mode=model.buoyancy,
-            g_b=model.g_b, alpha=model.alpha_T, beta=model.beta_S,
-            T0=model.T0, S0=model.S0,
-            it_T=names.index("T") if eos and "T" in names else -1,
-            it_S=names.index("S") if eos and "S" in names else -1,
-            it_B=len(names) if model.has_b else -1,
-            nu_v=0.0 if model.vert_impl else model.nu_v,
-            kappa_v=0.0 if model.vert_impl else model.kappa_v,
-            interpret=_fill_interpret())
-    # fold the tendency's closing (mask_u, mask_v) multiply into the kernel
-    # window too — valid when no term lands on Gu/Gv between the kernel and
-    # the mask except wind (pre-masked below; distributive up to land-zero
-    # signs), i.e. no biharmonic / linear drag, and the vert contribution is
-    # consumed by the kernel's acc operand (dGu is NOT pre-masked)
-    mom_mask_fold = (ACC_FOLD and use_mom_kernel and m.nu4_h == 0.0
-                     and m.drag_type != "linear")
-    if use_mom_kernel:
-        from ..ops.pallas_mom import momentum_pallas
-        from .hydrostatic import _fill_interpret
+    v_hat = ixf(iyc(g.dx_cf * v)) * m.inv_dx_fc
+    q_at_u = (weno5_upwind_centers_from_faces(q, v_hat, axis=-2)
+              if upwind_q else iyc(q))
+    ke = 0.5 * (ixc(u * u) + iyc(v * v))
+    Gu = q_at_u * v_hat - dxf(ke) * m.inv_dx_fc
 
-        Gu, Gv = momentum_pallas(
-            u, v, model.mom_static, model.mom_lay,
-            has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic",
-            acc=(dgu, dgv) if (use_vert_kernel and ACC_FOLD) else None,
-            mask_out=((model.mask_u3, model.mask_v3) if mom_mask_fold
-                      else None),
-            interpret=_fill_interpret())
-    else:
-        zeta = (dxf(g.dy_cf * v) - dyf(g.dx_fc * u)) * m.inv_az_ff
-        q = zeta + m.f_ff if m.coriolis else zeta
-
-        v_hat = ixf(iyc(g.dx_cf * v)) * m.inv_dx_fc
-        q_at_u = (weno5_upwind_centers_from_faces(q, v_hat, axis=-2)
-                  if upwind_q else iyc(q))
-        ke = 0.5 * (ixc(u * u) + iyc(v * v))
-        Gu = q_at_u * v_hat - dxf(ke) * m.inv_dx_fc
-
-        u_hat = iyf(ixc(g.dy_fc * u)) * m.inv_dy_cf
-        q_at_v = (weno5_upwind_centers_from_faces(q, u_hat, axis=-1)
-                  if upwind_q else ixc(q))
-        Gv = -q_at_v * u_hat - dyf(ke) * m.inv_dy_cf
+    u_hat = iyf(ixc(g.dy_fc * u)) * m.inv_dy_cf
+    q_at_v = (weno5_upwind_centers_from_faces(q, u_hat, axis=-1)
+              if upwind_q else ixc(q))
+    Gv = -q_at_v * u_hat - dyf(ke) * m.inv_dy_cf
 
     # --- layer-coupled vertical terms: interface velocity w, advective
     # w-transport, baroclinic pressure gradient (p = -∫ b dz with b from the
     # prognostic BuoyancyTracer or the T/S linear EOS), and the explicit
-    # vertical Laplacians. On TPU the whole slice runs as ONE z-resident
-    # Pallas column pass (the vertical_pallas call ABOVE, before the momentum
-    # section) — w, p and every interface flux stay in VMEM; the XLA
-    # formulation below is the oracle path (parity pinned in
-    # tests/test_pallas_vert.py and tests_tpu/).
-    if use_vert_kernel:
-        if not (use_mom_kernel and ACC_FOLD):
-            # mom kernel's acc operand didn't consume (dGu, dGv)
-            Gu = Gu + dgu
-            Gv = Gv + dgv
-    else:
-        # --- vertical momentum advection (advective form, centered)
-        w = vertical_velocity(model, u, v)
-        Gu = Gu - _w_advect(ixf(w), u, model.dzc3)
-        Gv = Gv - _w_advect(iyf(w), v, model.dzc3)
+    # vertical Laplacians.
+    # --- vertical momentum advection (advective form, centered)
+    w = vertical_velocity(model, u, v)
+    Gu = Gu - _w_advect(ixf(w), u, model.dzc3)
+    Gv = Gv - _w_advect(iyf(w), v, model.dzc3)
 
-        if model.buoyancy != "none":
-            if model.buoyancy == "linear_eos":
-                b_eff = _linear_eos_buoyancy(model, c)
-            else:
-                b_eff = b
-            p = _hydrostatic_pressure(b_eff, model.dz3)
-            Gu = Gu - dxf(p) * m.inv_dx_fc
-            Gv = Gv - dyf(p) * m.inv_dy_cf
+    if model.buoyancy != "none":
+        if model.buoyancy == "linear_eos":
+            b_eff = _linear_eos_buoyancy(model, c)
+        else:
+            b_eff = b
+        p = _hydrostatic_pressure(b_eff, model.dz3)
+        Gu = Gu - dxf(p) * m.inv_dx_fc
+        Gv = Gv - dyf(p) * m.inv_dy_cf
 
-        if model.nu_v > 0.0 and not model.vert_impl:
-            Gu = Gu + model.nu_v * _vertical_laplacian(u, model.dz3, model.dzc3,
-                                                       model.mask_u3)
-            Gv = Gv + model.nu_v * _vertical_laplacian(v, model.dz3, model.dzc3,
-                                                       model.mask_v3)
+    if model.nu_v > 0.0 and not model.vert_impl:
+        Gu = Gu + model.nu_v * _vertical_laplacian(u, model.dz3, model.dzc3,
+                                                   model.mask_u3)
+        Gv = Gv + model.nu_v * _vertical_laplacian(v, model.dz3, model.dzc3,
+                                                   model.mask_v3)
 
     # --- optional forcing / closures (compiled out when disabled)
     if m.wind:
-        # surface stress accelerates the top layer (pre-masked when the mask
-        # multiply was folded into the momentum kernel)
-        wu = m.taux / model.dz[0]
-        wv = m.tauy / model.dz[0]
-        if mom_mask_fold:
-            wu = wu * model.mask_u3[0]
-            wv = wv * model.mask_v3[0]
-        Gu = Gu.at[0].add(wu)
-        Gv = Gv.at[0].add(wv)
+        # surface stress accelerates the top layer
+        Gu = Gu.at[0].add(m.taux / model.dz[0])
+        Gv = Gv.at[0].add(m.tauy / model.dz[0])
     if m.drag_type == "linear":
         Gu = Gu - (m.drag_coeff / model.dz3) * u * model.bot_u
         Gv = Gv - (m.drag_coeff / model.dz3) * v * model.bot_v
-    elif m.drag_type == "quadratic" and not use_mom_kernel:  # kernel fuses this
+    elif m.drag_type == "quadratic":
         sp_u = jnp.sqrt(u * u + ixf(iyc(v)) ** 2)
         sp_v = jnp.sqrt(v * v + iyf(ixc(u)) ** 2)
         Gu = Gu - (m.drag_coeff / model.dz3) * sp_u * u * model.bot_u
         Gv = Gv - (m.drag_coeff / model.dz3) * sp_v * v * model.bot_v
-    if m.nu_h > 0.0 and not use_mom_kernel:  # kernel fuses this
+    if m.nu_h > 0.0:
         from ..ops.closures import laplacian_u, laplacian_v
 
         Gu = Gu + m.nu_h * laplacian_u(g, u, model.mask_u3, model.mask_c3)
@@ -787,47 +620,22 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         Gu = Gu - m.nu4_h * biharmonic_u(g, u, model.mask_u3, model.mask_c3)
         Gv = Gv - m.nu4_h * biharmonic_v(g, v, model.mask_v3, model.mask_c3)
 
-    if not mom_mask_fold:  # folded into the momentum kernel window otherwise
-        Gu = Gu * model.mask_u3
-        Gv = Gv * model.mask_v3
+    Gu = Gu * model.mask_u3
+    Gv = Gv * model.mask_v3
 
     # --- tracers: flux-form WENO-5 (x, y) + Centered (z)
     inv_vol = model.mask_c3 * _inv(g.az_cc * model.dz3)
-    # VMEM-resident horizontal-advection kernel (ops/pallas_adv.py) on TPU for
-    # the WENO-5 scheme: same math with the A_u/A_v factors pre-associated at
-    # model build (adv_au/adv_av) — the XLA path materializes its roll shifts
-    # through HBM on this memory-bound stack. Tight-band parity pinned in
-    # tests/test_pallas_adv.py.
-    use_adv_kernel = m.use_pallas and m.tracer_advection == "weno5"
-    # the column kernel's dGc accumulates inside the adv kernel's windows —
-    # but only when the float order is preserved exactly (no biharmonic term
-    # between the advective tendency and the vertical add)
-    acc_in_adv = (use_adv_kernel and use_vert_kernel and ACC_FOLD
-                  and m.kappa4_h == 0.0)
-
-    def tracer_tendency(cq, acc=None):
-        if use_adv_kernel:
-            from ..ops.pallas_adv import tracer_adv_pallas
-
-            # kappa_h's Laplacian rides in the same window (packed factor
-            # planes) — the separate closure block below is skipped here
-            P3 = cq.reshape((-1,) + cq.shape[-2:])
-            G = tracer_adv_pallas(P3, u, v, statics_packed=model.adv_pack,
-                                  g_pack=model.vert_g[3:5], dz=model.dz,
-                                  acc=acc,
-                                  interpret=_fill_interpret()).reshape(cq.shape)
-        else:
-            cx = tracer_faces(cq, u, axis=-1, scheme=m.tracer_advection)
-            cy = tracer_faces(cq, v, axis=-2, scheme=m.tracer_advection)
-            fx = u * model.dzu * g.dy_fc * cx
-            fy = v * model.dzv * g.dx_cf * cy
-            G = -(dxc(fx) + dyc(fy)) * inv_vol
-        if not use_vert_kernel:  # column kernel carries these (dgc_vert below)
-            G = G + _vertical_tracer_div(w, cq, model.dz3) * model.mask_c3
-            if model.kappa_v > 0.0 and not model.vert_impl:
-                G = G + model.kappa_v * _vertical_laplacian(
-                    cq, model.dz3, model.dzc3, model.mask_c3) * model.mask_c3
-        if m.kappa_h > 0.0 and not use_adv_kernel:  # kernel path fuses this
+    def tracer_tendency(cq):
+        cx = tracer_faces(cq, u, axis=-1, scheme=m.tracer_advection)
+        cy = tracer_faces(cq, v, axis=-2, scheme=m.tracer_advection)
+        fx = u * model.dzu * g.dy_fc * cx
+        fy = v * model.dzv * g.dx_cf * cy
+        G = -(dxc(fx) + dyc(fy)) * inv_vol
+        G = G + _vertical_tracer_div(w, cq, model.dz3) * model.mask_c3
+        if model.kappa_v > 0.0 and not model.vert_impl:
+            G = G + model.kappa_v * _vertical_laplacian(
+                cq, model.dz3, model.dzc3, model.mask_c3) * model.mask_c3
+        if m.kappa_h > 0.0:
             from ..ops.closures import laplacian_c
 
             G = G + m.kappa_h * laplacian_c(g, cq, model.mask_c3, model.mask_u3,
@@ -841,16 +649,8 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
 
     # multi-tracer: one broadcast pass over the (n, Nz, Yb, Xb) view — every
     # horizontal/vertical operator above indexes axes -1/-2/-3 only
-    ncp = c.shape[0]
-    Gc = _as_tracer_stack(model, tracer_tendency(
-        _as_tracer4(model, c), acc=dgc_vert[:ncp] if acc_in_adv else None))
-    Gb = (tracer_tendency(b, acc=dgc_vert[ncp:] if acc_in_adv else None)
-          if model.has_b else jnp.zeros_like(b))
-    if use_vert_kernel and not acc_in_adv:
-        # adv kernel off (or biharmonic order constraint): XLA adds
-        Gc = Gc + dgc_vert[:ncp]
-        if model.has_b:
-            Gb = Gb + dgc_vert[ncp:]
+    Gc = _as_tracer_stack(model, tracer_tendency(_as_tracer4(model, c)))
+    Gb = tracer_tendency(b) if model.has_b else jnp.zeros_like(b)
 
     # --- user forcing (Oceananigans ``Forcing``), pointwise per layer: fn receives
     # the (Nz, 1, 1) layer-center depths so (λ, φ, z) broadcast to (Nz, Yb, Xb)
@@ -877,7 +677,7 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
 
 def _sharded_group_fill(spmd):
     """Strip-based group-fill closure for a sharded mesh (1-D ``Spmd`` or 2-D
-    ``Spmd2D``), or None when the run is serial (batch/pallas fills apply).
+    ``Spmd2D``), or None when the run is serial (per/batch fills apply).
     The closure maps (groups, locs, signs, grid) -> filled groups with ZERO
     full-plane concats (ops/spmd.fill_halos_spmd_groups and the 2-D
     counterpart)."""
@@ -955,8 +755,8 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
 
     Halo-fill mode mirrors the single-layer ``step``: serial runs fill each
     prognostic GROUP in place (the zipper ops broadcast over the leading layer axis,
-    so u/v/c/b fill with zero stack copies — the (3-4)·Nz-plane concat/split of the
-    batched path is ~15% of the serial step at 1/4°×10, measured on v5e); SPMD runs
+    so u/v/c/b fill with zero stack copies instead of the (3-4)·Nz-plane
+    concat/split of the batched path); SPMD runs
     concatenate everything into ONE batched exchange (one collective pair per
     direction for the whole stack beats per-group ppermutes)."""
     g = model.grid
@@ -965,18 +765,10 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     nz = model.nz
     dt = jnp.asarray(dt, model.dtype)
     if fill_mode is None:
-        if spmd is not None:
-            fill_mode = "batch"
-        else:
-            # serial default: aliased Pallas strip writes on TPU — bitwise-equal
-            # to the XLA fills at ~2% of their HBM traffic; part of the measured
-            # round-4 step reduction 26.4 -> 21.3 ms together with the single-
-            # window barotropic kernel (docs/performance.md, layered section).
-            # XLA strip writes elsewhere
-            fill_mode = "pallas" if m.use_pallas else "per"
-    if fill_mode not in ("pallas", "per", "batch"):
-        raise ValueError(f"unknown fill_mode {fill_mode!r}; options: pallas|per|batch")
-    if fill_mode in ("pallas", "per") and spmd is not None:
+        fill_mode = "per" if spmd is None else "batch"
+    if fill_mode not in ("per", "batch"):
+        raise ValueError(f"unknown fill_mode {fill_mode!r}; options: per|batch")
+    if fill_mode == "per" and spmd is not None:
         raise ValueError(
             f"fill_mode={fill_mode!r} is a serial-only path; sharded (spmd) runs "
             "use the batched-exchange fill (fill_mode='batch' or None)")
@@ -1010,23 +802,7 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
                               [CC, FC, CF], [1, -1, -1], spmd)
             eta_f, U_f, V_f = SE3[0], SE3[1], SE3[2]
         Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd)
-    elif fill_mode == "pallas" and spmd is None:
-        # aliased Pallas strip writes: each prognostic group's buffer is donated to
-        # a kernel that touches ONLY the halo-strip blocks in HBM. The pre-fill
-        # strip contents are saved (~2% of each array) so the predictor below can
-        # reconstruct the unfilled state bitwise without forcing XLA to keep (and
-        # defensively copy) the original buffers.
-        u, sv_u = _fill_aliased(g, state.u, FC, -1, save=True)
-        v, sv_v = _fill_aliased(g, state.v, CF, -1, save=True)
-        c, sv_c = _fill_aliased(g, state.c, CC, 1, save=True)
-        if model.has_b:
-            b, sv_b = _fill_aliased(g, state.b, CC, 1, save=True)
-        else:
-            b, sv_b = state.b, None
-        eta_f = _fill_aliased(ge, state.eta, CC, 1)
-        U_f = _fill_aliased(ge, state.U, FC, -1)
-        V_f = _fill_aliased(ge, state.V, CF, -1)
-    elif fill_mode == "per" and spmd is None:
+    elif fill_mode == "per":
         # per-group broadcast fills: no concat, strip writes only
         u = _fill3(model, state.u, FC, -1)
         v = _fill3(model, state.v, CF, -1)
@@ -1040,8 +816,7 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
         if fill_groups is not None:
             # sharded mesh (1-D or 2-D): STRIP-BASED group exchange — same
             # collective count as the batched path with zero full-plane
-            # concats (round-4 verdict item 4; the concat round-trips were
-            # ~15% of the serial step at 1/4°×10)
+            # concats
             groups = [state.u, state.v, state.c] + ([state.b] if model.has_b else [])
             glocs = [FC, CF, CC] + ([CC] if model.has_b else [])
             gsigns = [-1, -1, 1] + ([1] if model.has_b else [])
@@ -1072,18 +847,6 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     if not overlap:
         Gu, Gv, Gc, Gb = layered_tendencies(model, u, v, c, b, t=state.t)
 
-    if fill_mode == "pallas" and spmd is None and not overlap:
-        # Reconstruct the UNFILLED prognostics for the predictor below (bitwise ==
-        # state.u etc.): the filled buffers are dead once the tendency pass has
-        # consumed them, so the restore writes strips into them in place — the
-        # original state buffers were donated to the fill and never copied.
-        u0 = _unfill_aliased(g, u, sv_u, FC)
-        v0 = _unfill_aliased(g, v, sv_v, CF)
-        c0 = _unfill_aliased(g, c, sv_c, CC)
-        b0 = _unfill_aliased(g, b, sv_b, CC) if model.has_b else state.b
-    else:
-        u0, v0, c0, b0 = state.u, state.v, state.c, state.b
-
     first = state.iteration == 0
     w1 = jnp.where(first, 1.0, 1.5 + _CHI).astype(model.dtype)
     w2 = jnp.where(first, 0.0, 0.5 + _CHI).astype(model.dtype)
@@ -1097,10 +860,7 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     GVb = jnp.sum(Gv_s * model.dzv, axis=0)
     GU0 = embed_ext(g, ge, GUb)
     GV0 = embed_ext(g, ge, GVb)
-    if fill_mode == "pallas" and spmd is None:
-        GU_f = _fill_aliased(ge, GU0, FC, -1)
-        GV_f = _fill_aliased(ge, GV0, CF, -1)
-    elif fill_mode == "per" and spmd is None:
+    if fill_mode == "per":
         GU_f = _fill(ge, GU0, FC, -1)
         GV_f = _fill(ge, GV0, CF, -1)
     else:
@@ -1118,40 +878,8 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
         wrap_x_each_substep=ge.Hx < n_sub + 1)
 
     # split-explicit corrector: predictor layers, then replace the depth mean
-    # (u0/v0/c0/b0 are the unfilled prognostics: state.* directly, or their
-    # strip-restored bitwise reconstruction on the aliased-Pallas fill path).
-    # Opt-in (OSG_CORR_KERNEL=1 — measured LOSS, see USE_CORR_KERNEL): the
-    # whole AB2 predictor + corrector + tracer-update glue as ONE row-blocked
-    # Pallas pass (ops/pallas_corr.py); vertical-implicit configurations keep
-    # the XLA chain either way (the Thomas solve sits between predictor and
-    # corrector there).
-    use_corr_kernel = USE_CORR_KERNEL and m.use_pallas and not (
-        model.vert_impl and (model.nu_v > 0.0 or model.kappa_v > 0.0))
-    if use_corr_kernel:
-        from ..ops.pallas_corr import corrector_pallas
-
-        cc0 = jnp.concatenate([c0, b0], axis=0) if model.has_b else c0
-        gcc = jnp.concatenate([Gc, Gb], axis=0) if model.has_b else Gc
-        gcco = (jnp.concatenate([state.Gc, state.Gb], axis=0)
-                if model.has_b else state.Gc)
-        u_new, v_new, cb_new = corrector_pallas(
-            u0, Gu, state.Gu, v0, Gv, state.Gv, cc0, gcc, gcco,
-            model.dzu, model.dzv, model.mask_c3,
-            model.inv_h_u, model.inv_h_v,
-            crop_ext(g, ge, U_a), crop_ext(g, ge, V_a),
-            w1, w2, dt, interpret=_fill_interpret())
-        if model.has_b:
-            c_new, b_new = cb_new[: state.c.shape[0]], cb_new[state.c.shape[0]:]
-        else:
-            c_new, b_new = cb_new, state.b
-        return LayeredState(
-            u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, b=b_new,
-            Gu=Gu, Gv=Gv, Gc=Gc, Gb=Gb if model.has_b else state.Gb,
-            t=state.t + dt, iteration=state.iteration + 1,
-        )
-
-    u_star = (u0 + dt * Gu_s) * model.mask_u3
-    v_star = (v0 + dt * Gv_s) * model.mask_v3
+    u_star = (state.u + dt * Gu_s) * model.mask_u3
+    v_star = (state.v + dt * Gv_s) * model.mask_v3
     if model.vert_impl and model.nu_v > 0.0:
         # backward-Euler vertical viscosity on the predictor; Σ dz·u is conserved by
         # the solve, so the depth-mean replacement below is unaffected
@@ -1165,8 +893,8 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     u_new = (u_star + (Ubar - ubar)[None]) * model.mask_u3
     v_new = (v_star + (Vbar - vbar)[None]) * model.mask_v3
 
-    c_new = _mask_tracers(model, c0 + dt * Gc_s)
-    b_new = (b0 + dt * Gb_s) * model.mask_c3 if model.has_b else state.b
+    c_new = _mask_tracers(model, state.c + dt * Gc_s)
+    b_new = (state.b + dt * Gb_s) * model.mask_c3 if model.has_b else state.b
     if model.vert_impl and model.kappa_v > 0.0:
         r = dt * model.kappa_v
         c_new = _as_tracer_stack(model, _implicit_vertical_solve(

@@ -1,6 +1,6 @@
 """Split-explicit free surface: substepping weights and halo-width coupling.
 
-TPU-native build of ``SplitExplicitFreeSurface(grid; substeps = N)`` (SURVEY.md O6).
+JAX build of ``SplitExplicitFreeSurface(grid; substeps = N)`` (SURVEY.md O6).
 The barotropic subsystem (η, U, V) is integrated with many short forward-backward
 substeps per baroclinic step, and the results are averaged with the Shchepetkin &
 McWilliams (2005) power-law weights over τ ∈ (0, 2] baroclinic steps.
@@ -16,8 +16,8 @@ The defining behavioral pins from the reference (``test/runtests.jl:52-71``):
 Deliberate deviation from the reference (which keeps the x-halo unchanged and
 re-applies the periodic x-wrap every substep): here the x-halo widens by the same
 rule, so the substep loop is wrap-free in x too — validity shrinks one column per
-substep. Bitwise-equal results, ~4% faster on v5e (no per-substep strip writes in
-the Pallas kernel), and required anyway for the fold-aware 2-D decomposition.
+substep. Bitwise-equal results, no per-substep strip writes, and required anyway
+for the fold-aware 2-D decomposition.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Advection schemes: WENO-5 (Z-weights), centered, flux-form and vector-invariant.
 
-TPU-native build of the schemes the reference workloads exercise (SURVEY.md O7):
+JAX build of the schemes the reference workloads exercise (SURVEY.md O7):
 ``FluxFormAdvection(WENO(order=5), WENO(order=5), Centered())`` for tracers and
 ``WENOVectorInvariant(vorticity_order=5)`` for momentum
 (``examples/bickley_jet.jl:48-49``). The WENO-5 reconstruction uses uniform-mesh

@@ -9,7 +9,7 @@ derives the zipper-fold sign from that location (``src/tripolar_grid_extensions.
     (Center, Face)   -> -1   (v-velocity-like: signed y-vector)
     (Center, Center) -> +1   (tracers, η)
 
-In this TPU-native design, locations are plain static strings ``"f"``/``"c"`` per
+In this design, locations are plain static strings ``"f"``/``"c"`` per
 dimension — a tiny rules table rather than a dispatch hierarchy (SURVEY.md §7 design
 stance). They are compile-time constants that select which fold index-map the halo fill
 uses; nothing about them exists at runtime inside jit.

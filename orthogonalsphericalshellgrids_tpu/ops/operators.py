@@ -1,6 +1,6 @@
 """Staggered C-grid difference and interpolation operators.
 
-TPU-native equivalents of the Oceananigans.Operators stencils the reference's model
+JAX equivalents of the Oceananigans.Operators stencils the reference's model
 layer consumes (SURVEY.md O14: the hot stencils all read the precomputed Δx/Δy/Az
 metric arrays from the grid). All operators act on halo-inclusive arrays with layout
 ``(..., y, x)`` and are shape-preserving shifts (``jnp.roll``), so consuming one of them
@@ -13,8 +13,7 @@ Index convention (0-based): a face-x located value ``f[..., i]`` sits *between* 
 shifted to 0-based). Likewise in y.
 
 Everything here is pure jnp; XLA fuses the roll/arith chains into the surrounding
-kernels. The Pallas barotropic kernel (ops/pallas_baro.py) is a drop-in replacement
-for the hot subcycle composition.
+kernels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Zipper north-fold boundary condition and fused halo filling.
 
-TPU-native reimplementation of the reference's ``ZipperBoundaryCondition``
+JAX reimplementation of the reference's ``ZipperBoundaryCondition``
 (``src/zipper_boundary_condition.jl``). The tripolar grid is periodic in x and *folded*
 onto itself at the north edge: the north halo of column i is read from the mirrored
 column i' on the other half of the fold, with a sign flip for vector components.
@@ -20,12 +20,12 @@ replicate the four reference fold kernels:
 Performance note: halo filling runs on every prognostic field every step (the hot
 communication loop, SURVEY.md §3.3). The update writes ONLY the halo strips
 (``.at[...].set`` -> dynamic-update-slice) rather than reassembling the full array —
-on TPU this is the difference between touching ~3 full HBM copies per fill and
+the difference between touching ~3 full copies of the array per fill and
 touching a few thin strips.
 
 All functions are array-library agnostic (``xp=numpy`` for float64 host-side grid
 construction, ``xp=jax.numpy`` inside jit). Arrays are halo-inclusive with layout
-``(..., y, x)`` — x last so it lands on the TPU lane dimension — of shape
+``(..., y, x)`` — x last, the contiguous dimension — of shape
 ``(..., Ny + 2*Hy, Nx + 2*Hx)``. 0-based index p maps to the reference's 1-based,
 offset-array index m via p = m + H - 1.
 """
@@ -101,9 +101,7 @@ def fold_strip(A, loc, sign, Nx, Ny, Hx, Hy, xp=np):
     Returns ``(full, y0)``: ``full`` has shape ``(..., rf, Nx + 2*Hx)`` where
     ``rf = Hy + 1`` for center-y locations (row Ny + halo rows) and ``rf = Hy`` for
     face-y (halo rows only), and ``y0`` is the first written row. The strip is
-    already periodically x-wrapped. Shared by the strip-write path (``fold_north``)
-    and the aliased Pallas fill (``ops/pallas_fill.py``), so both are bitwise equal
-    by construction.
+    already periodically x-wrapped; ``fold_north`` writes it.
     """
     lx, ly = validate_location(loc)
     # Reads only the top Hy+1 interior rows.

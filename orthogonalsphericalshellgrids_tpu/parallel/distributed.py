@@ -1,6 +1,6 @@
 """Distributed (y-sharded) tripolar model over a JAX device mesh.
 
-TPU-native build of the reference's distributed layer (SURVEY.md §2.3/2.4, C7):
+JAX build of the reference's distributed layer (SURVEY.md §2.3/2.4, C7):
 the reference supports exactly 1-D y(j)-partitioning (guard at
 ``src/distributed_tripolar_grid.jl:30-31``), builds the global grid on the host and
 slices a halo-inclusive j-range per rank (``jrange = jstart-Hy:jend+Hy``, :47-49), puts
@@ -13,7 +13,7 @@ Here the same decomposition maps to single-controller JAX:
   with ``NamedSharding(P('y', None))`` — each shard's block IS its halo-inclusive local
   array, the direct analog of the reference's halo-inclusive j-range slice.
 - The step runs under ``shard_map``; halo exchange is two ``lax.ppermute`` neighbor
-  shifts over the mesh's y axis (ICI), the zipper fold is a local flip on the top shard
+  shifts over the mesh's y axis, the zipper fold is a local flip on the top shard
   (each shard holds the full x extent, exactly like the reference's ranks), the south
   fill applies on shard 0 only.
 - The barotropic substep loop stays communication-free: the free-surface fields carry
@@ -45,7 +45,7 @@ __all__ = ["Spmd", "fill_halos_spmd", "make_mesh", "distribute", "gather_state",
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """1-D y mesh over the available devices (ICI within a slice, DCN across)."""
+    """1-D y mesh over the available devices, in their order."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -85,8 +85,7 @@ def _pspec_for(leaf):
 def _repartition_tree(tree, n: int, ny: int, g, ge):
     """Tag-driven serial -> stacked-per-shard conversion: every leaf's layout comes
     from its registered name (parallel/layouts.py), never from its shape. 3-D leaves
-    are stacked planes, row-partitioned per plane; alignment padding past the tagged
-    layout (the Pallas packs) is sliced off — per-shard kernels rebuild their own."""
+    are stacked planes, row-partitioned per plane."""
 
     def repartition(path, leaf):
         tag = layouts.leaf_layout(path)
@@ -101,11 +100,11 @@ def _repartition_tree(tree, n: int, ny: int, g, ge):
                     f"leaf {jax.tree_util.keystr(path)} tagged {tag!r} has "
                     f"{a.shape[0]} rows, layout expects {rows}")
             return _partition_rows(a, n, ny, Hy)
-        if a.shape[1] < rows:
+        if a.shape[1] != rows:
             raise ValueError(
                 f"3-D leaf {jax.tree_util.keystr(path)} tagged {tag!r} has "
-                f"{a.shape[1]} rows, layout expects >= {rows}")
-        return np.stack([_partition_rows(a[k][:rows], n, ny, Hy)
+                f"{a.shape[1]} rows, layout expects {rows}")
+        return np.stack([_partition_rows(a[k], n, ny, Hy)
                          for k in range(a.shape[0])])
 
     return jax.tree_util.tree_map_with_path(repartition, tree)
@@ -198,12 +197,6 @@ def sharded_step_fn(mesh: Mesh, dist_model: HydrostaticModel, overlap=None):
             mesh=mesh,
             in_specs=(model_specs, state_specs, P()),
             out_specs=state_specs,
-            # The varying-mesh-axes checker cannot annotate the Pallas kernel's
-            # ShapeDtypeStruct out_shape (ops/pallas_baro.py) and rejects the trace,
-            # so it is disabled ONLY when the Pallas path is in the trace; the XLA
-            # path (CPU tests) keeps the checker on, and the Pallas path is pinned
-            # by the sharded-vs-serial bitwise tests instead.
-            check_vma=not dist_model.use_pallas,
         )
         return fn(dist_model, dist_state, dt)
 
@@ -218,9 +211,8 @@ def distribute_layered(model, state, mesh: Mesh):
     """Partition a layered model+state onto the mesh (the single-layer ``distribute``
     extended to (Nz, y, x) leaves: the layer axis is replicated, rows are sharded).
 
-    Every 3-D leaf — per-layer state fields, per-layer masks, and the barotropic
-    engine's stacked Pallas operand packs alike — is partitioned along its row axis
-    into halo-inclusive per-shard blocks; grid metadata is rewritten to local sizes so
+    Every 3-D leaf (per-layer state fields and masks) is partitioned along its row
+    axis into halo-inclusive per-shard blocks; grid metadata is rewritten to local sizes so
     the unchanged serial layered_step runs inside shard_map."""
     n = mesh.devices.size
     g, ge = model.grid, model.baro.grid_ext
@@ -271,8 +263,6 @@ def sharded_layered_step_fn(mesh: Mesh, dist_model, overlap=None):
             mesh=mesh,
             in_specs=(model_specs, state_specs, P()),
             out_specs=state_specs,
-            # see sharded_step_fn: checker off only when Pallas is in the trace
-            check_vma=not dist_model.baro.use_pallas,
         )
         return fn(dist_model, dist_state, dt)
 

@@ -86,13 +86,11 @@ def _repartition_tree2d(tree, n_y, n_x, ny, nx, g, ge):
                     f"leaf {jax.tree_util.keystr(path)} tagged {tag!r} has shape "
                     f"{a.shape}, layout expects {(rows, cols)}")
             return _partition_blocks(a, n_y, n_x, ny, nx, Hy_k, Hx_k)
-        if a.shape[1] < rows or a.shape[2] < cols:
+        if a.shape[1:] != (rows, cols):
             raise ValueError(
                 f"3-D leaf {jax.tree_util.keystr(path)} tagged {tag!r} has planes "
-                f"{a.shape[1:]}, layout expects >= {(rows, cols)}")
-        # slice off Pallas alignment padding; per-shard kernels rebuild their own
-        trimmed = a[:, :rows, :cols]
-        return np.stack([_partition_blocks(trimmed[k], n_y, n_x, ny, nx, Hy_k, Hx_k)
+                f"{a.shape[1:]}, layout expects {(rows, cols)}")
+        return np.stack([_partition_blocks(a[k], n_y, n_x, ny, nx, Hy_k, Hx_k)
                          for k in range(a.shape[0])])
 
     return jax.tree_util.tree_map_with_path(repartition, tree)
@@ -177,9 +175,6 @@ def sharded_step_fn2d(mesh: Mesh, dist_model: HydrostaticModel, nx_global: int,
             mesh=mesh,
             in_specs=(model_specs, state_specs, P()),
             out_specs=state_specs,
-            # see parallel/distributed.py: the vma checker rejects Pallas out_shapes,
-            # so it is off only when the Pallas path is actually in the trace
-            check_vma=not dist_model.use_pallas,
         )
         return fn(dist_model, dist_state, dt)
 
@@ -234,8 +229,6 @@ def sharded_layered_step_fn2d(mesh: Mesh, dist_model, nx_global: int, overlap=No
             mesh=mesh,
             in_specs=(model_specs, state_specs, P()),
             out_specs=state_specs,
-            # see parallel/distributed.py: checker off only when Pallas is traced
-            check_vma=not dist_model.baro.use_pallas,
         )
         return fn(dist_model, dist_state, dt)
 

@@ -11,11 +11,8 @@ The tag is the single source of truth for both directions of the conversion:
 ``parallel/distributed.py`` (1-D y) and ``parallel/distributed2d.py`` (2-D x,y) use it
 to partition, gather, and build PartitionSpecs.
 
-3-D leaves are stacked planes: a leading axis of layers (layered model fields) or of
-operand planes (the Pallas packs); each plane carries the tagged 2-D layout, possibly
-padded PAST it on the trailing axes (``ops/pallas_baro.pad_pack`` row/lane alignment).
-Partitioning slices planes down to the tagged layout first — per-shard kernels rebuild
-their own alignment padding.
+3-D leaves are stacked planes (a leading axis of layers); each plane carries the
+tagged 2-D layout.
 """
 
 from __future__ import annotations
@@ -47,7 +44,6 @@ _MODEL_FIELDS = {
     "dy_fc_e": EXT, "dx_cf_e": EXT,
     "h_u_e": EXT, "h_v_e": EXT, "mask_u_e": EXT, "mask_v_e": EXT,
     "weights": REP,
-    "baro_pack": EXT,    # (K, Ye, Xe) stacked planes, pad_pack-aligned past EXT
     "f_ff": BASE, "taux": BASE, "tauy": BASE,
 }
 
@@ -55,9 +51,6 @@ _MODEL_FIELDS = {
 _LAYERED_FIELDS = {
     "mask_c3": BASE, "mask_u3": BASE, "mask_v3": BASE,
     "dzu": BASE, "dzv": BASE,
-    "adv_pack": BASE,
-    "mom_static": BASE, "mom_lay": BASE,
-    "vert_pack": BASE, "vert_g": BASE,
     "inv_h_u": BASE, "inv_h_v": BASE,
     "bot_u": BASE, "bot_v": BASE,
 }

@@ -2,7 +2,7 @@
 
 The reference repo has no checkpointing (SURVEY.md §5: Oceananigans provides a
 Checkpointer but no reference file uses it); the state-pytree design makes it trivial
-here. Uses orbax when available (the production path on multi-host TPU: async,
+here. Uses orbax when available (the production path on multi-host runs: async,
 sharding-aware), falling back to a plain npz of the flattened pytree.
 """
 

@@ -1,6 +1,6 @@
 """Output writing and time-series reading.
 
-TPU-native equivalent of the reference's ``JLD2OutputWriter`` + ``FieldTimeSeries``
+JAX equivalent of the reference's ``JLD2OutputWriter`` + ``FieldTimeSeries``
 pair (SURVEY.md O11; ``examples/bickley_jet.jl:79-82, :92-93``): periodic field dumps
 with an optional ``with_halos`` flag, and a reader that loads the dump back as arrays
 with times.

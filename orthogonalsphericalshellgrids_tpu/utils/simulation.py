@@ -1,6 +1,6 @@
 """Simulation driver: run loop, callbacks, schedules, adaptive time stepping.
 
-TPU-native build of the Oceananigans simulation layer the reference examples use
+JAX build of the Oceananigans simulation layer the reference examples use
 (SURVEY.md O10: ``Simulation``, ``run!``, ``Callback``, ``IterationInterval``,
 ``TimeInterval``, ``TimeStepWizard(cfl=0.3, max_change=1.1, max_Δt)``;
 ``examples/bickley_jet.jl:73-89``).

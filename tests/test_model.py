@@ -79,8 +79,8 @@ def test_extended_halo_rule():
     # Pin of test/runtests.jl:58-71: Hy_ext == len(averaging_weights) + 1.
     # Deliberate deviation from the reference (which keeps Hx unchanged): the x-halo
     # widens by the same rule so the barotropic loop needs no per-substep x-wrap —
-    # validity shrinks in both directions (bitwise-equal results, ~4% faster on v5e,
-    # and required anyway for the fold-aware 2-D decomposition).
+    # validity shrinks in both directions (bitwise-equal results, no per-substep
+    # wrap, and required anyway for the fold-aware 2-D decomposition).
     grid = osg.TripolarGrid.make((10, 10, 1))
     fs = SplitExplicitFreeSurface(substeps=12)
     # no bottom mask -> the unmasked-pole guard must warn (and only warn)

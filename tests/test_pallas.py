@@ -1,131 +1,113 @@
-"""Pallas-kernel parity tests (interpret mode on CPU): the time-tiled barotropic
-kernel must reproduce the XLA scan implementation on the valid interior."""
+"""The GPU barotropic kernel (ops/baro_triton.py), in the Pallas interpreter on the
+CPU: parity with the XLA scan on the valid region, its behaviour under shard_map,
+and where the model picks it (lowered for CUDA only)."""
+
+from functools import partial
 
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
 
 import orthogonalsphericalshellgrids_tpu as osg
 from orthogonalsphericalshellgrids_tpu.models import (
-    SplitExplicitFreeSurface, initial_state, make_model,
-)
+    SplitExplicitFreeSurface, initial_state, make_model, step)
 from orthogonalsphericalshellgrids_tpu.models import hydrostatic as H
+from orthogonalsphericalshellgrids_tpu.ops.baro_triton import barotropic_substeps_triton
 from orthogonalsphericalshellgrids_tpu.ops.location import CC, CF, FC
-from orthogonalsphericalshellgrids_tpu.ops.pallas_baro import barotropic_substeps_pallas
 
 
-@pytest.mark.parametrize("shape,substeps", [((48, 40), 12), ((64, 96), 6)])
-def test_barotropic_pallas_matches_xla(shape, substeps):
+def _setup(shape, substeps):
     nx, ny = shape
     grid = osg.TripolarGrid.make((nx, ny, 1), dtype=jnp.float32,
                                  first_pole_longitude=45.0, north_poles_latitude=35.0)
-
-    def bottom(lam, phi):
-        return np.where(phi < -78, 1.0, 0.0)
-
     model = make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=substeps),
-                       bottom_height=bottom, use_pallas=False)
+                       bottom_height=lambda lam, phi: np.where(phi < -78, 1.0, 0.0))
     state = initial_state(
         model,
         u=lambda lam, phi: 1.0 / np.cosh(np.deg2rad(phi) * 8) ** 2,
         v=lambda lam, phi: 0.1 * np.sin(np.deg2rad(lam) * 3),
         eta=lambda lam, phi: 0.01 * np.cos(np.deg2rad(lam) * 2) * np.cos(np.deg2rad(phi) * 3),
     )
-
     ge = model.grid_ext
-    eta = H._fill(ge, state.eta, CC, 1)
-    U = H._fill(ge, state.U, FC, -1)
-    V = H._fill(ge, state.V, CF, -1)
-    GU = H._fill(ge, H.embed_ext(model.grid, ge, model.ib.h_u * jnp.ones_like(state.u) * 1e-6), FC, -1)
-    GV = H._fill(ge, H.embed_ext(model.grid, ge, model.ib.h_v * jnp.ones_like(state.v) * -2e-6), CF, -1)
-    dt = 120.0
+    args = (H._fill(ge, state.eta, CC, 1), H._fill(ge, state.U, FC, -1),
+            H._fill(ge, state.V, CF, -1),
+            H._fill(ge, H.embed_ext(model.grid, ge, model.ib.h_u * 1e-6), FC, -1),
+            H._fill(ge, H.embed_ext(model.grid, ge, model.ib.h_v * -2e-6), CF, -1))
+    return model, args
 
-    ref = H.barotropic_substeps(model, eta, U, V, GU, GV, dt)
 
-    dtau = model.fractional_dt * dt
-    out = barotropic_substeps_pallas(
-        model.baro_pack, eta, U, V, GU, GV, dtau, model.weights,
-        ge.Nx, ge.Hx, interpret=True,
-    )
+def _kernel(model, tile, k, dt=120.0):
+    return jax.jit(partial(
+        barotropic_substeps_triton, statics=H.baro_statics(model),
+        dtau=model.fractional_dt * dt, weights=model.weights, g=model.g,
+        tile=tile, k=k, interpret=True))
 
+
+# the (16, 32) window leaves ragged last tiles in both directions on both grids;
+# k = 1 and k = 4 cover one launch per substep and several substeps per launch
+# (with a shorter last launch). The kernel never wraps x: on the widened x-halo
+# that ``make_model`` builds, the scan with and without its per-substep x-wrap
+# agree on the interior, and the kernel matches both.
+@pytest.mark.parametrize("shape,substeps", [((48, 40), 12), ((64, 96), 6)])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("k", [1, 4])
+def test_barotropic_pallas_matches_xla(shape, substeps, wrap, k):
+    """Same operations in the same order as the scan: agreement to float32 FMA
+    contraction on the extended interior (which every substep's validity covers)."""
+    model, args = _setup(shape, substeps)
+    ge = model.grid_ext
+    ref = H.barotropic_substeps_xla(model, *args, 120.0, wrap_x_each_substep=wrap)
+    out = _kernel(model, (16, 32), k)(*args)
     for name, a, b in zip(["eta", "U", "V"], ref, out):
-        ai = np.asarray(ge.interior(a))
-        bi = np.asarray(ge.interior(b))
-        np.testing.assert_allclose(ai, bi, rtol=2e-6, atol=1e-10, err_msg=name)
+        a, b = np.asarray(ge.interior(a)), np.asarray(ge.interior(b))
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-6 * np.max(np.abs(a)),
+                                   err_msg=name)
 
 
-def test_barotropic_pallas_acc_window_mode():
-    """The full-window-accumulator kernel variant must match the default per-substep
-    accumulate (both against the same XLA oracle path)."""
-    grid = osg.TripolarGrid.make((48, 40, 1), dtype=jnp.float32,
-                                 first_pole_longitude=45.0, north_poles_latitude=35.0)
-
-    def bottom(lam, phi):
-        return np.where(phi < -78, 1.0, 0.0)
-
-    model = make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=12),
-                       bottom_height=bottom, use_pallas=False)
-    state = initial_state(
-        model,
-        eta=lambda lam, phi: 0.01 * np.cos(np.deg2rad(lam) * 2) * np.cos(np.deg2rad(phi) * 3),
-    )
-    ge = model.grid_ext
-    eta = H._fill(ge, state.eta, CC, 1)
-    U = H._fill(ge, state.U, FC, -1)
-    V = H._fill(ge, state.V, CF, -1)
-    Z = jnp.zeros_like(U)
-    dtau = model.fractional_dt * 120.0
-    a = barotropic_substeps_pallas(model.baro_pack, eta, U, V, Z, Z, dtau,
-                                   model.weights, ge.Nx, ge.Hx, interpret=True)
-    b = barotropic_substeps_pallas(model.baro_pack, eta, U, V, Z, Z, dtau,
-                                   model.weights, ge.Nx, ge.Hx, interpret=True,
-                                   acc_window=True)
-    for name, x, y in zip(["eta", "U", "V"], a, b):
-        np.testing.assert_allclose(np.asarray(ge.interior(x)),
-                                   np.asarray(ge.interior(y)),
-                                   rtol=1e-6, atol=1e-12, err_msg=name)
+def test_barotropic_kernel_rejects_tile_without_centre():
+    model, args = _setup((48, 40), 12)
+    with pytest.raises(ValueError, match="no output centre"):
+        _kernel(model, (16, 32), 8)(*args)
 
 
-def test_auto_block_rows_minimizes_processed_rows():
-    """Round-3 regression pin: the chooser must minimize total processed rows
-    (n_prog * W), not maximize B under the budget. At the 1/4-degree geometry
-    (Ye=724, Xe=1450, n_sub=21) with the round-4 60 MB budget that is the
-    SINGLE-WINDOW kernel B=728 (728 rows, zero overlap redundancy — measured
-    691 us/step vs 725 at B=152 vs 787 at the old max-B pick B=144); under a
-    16 MB-class budget it must be B=152 (1000 rows), not B=144 (1152 rows)."""
-    from orthogonalsphericalshellgrids_tpu.ops.pallas_baro import (
-        _VMEM_BUDGET_BYTES, _geometry, auto_block_rows)
+def test_barotropic_kernel_under_shard_map():
+    """Under shard_map each shard runs the kernel on its own block: the same result
+    as calling it on each block alone (interpreted, so without varying-axes checks,
+    which the interpreter's gathers do not carry), and the sharded step, with the
+    checks on, lowers for CUDA with the kernel inside."""
+    from orthogonalsphericalshellgrids_tpu.parallel import (
+        distribute, make_mesh, sharded_step_fn)
 
-    Ye, Xe, n_sub = 724, 1450, 21
-    B = auto_block_rows(Ye, Xe, n_sub)
-    assert B == 728, B
-    # under the old 16 MB-class budget the optimum is B=152, never B=144
-    assert auto_block_rows(Ye, Xe, n_sub,
-                           vmem_budget_bytes=int(14.5 * 2**20)) == 152
-    # the chosen block is optimal: no admissible B processes fewer total rows
-    Xe_pad = -128 * (-Xe // 128)
-    _, W, n_prog, _ = _geometry(Ye, n_sub, B)
-    best_rows = n_prog * W
-    for Bc in range(8, 736, 8):
-        Bk, Wc, npc, _ = _geometry(Ye, n_sub, Bc)
-        if (10 * Wc + 3 * Bk) * Xe_pad * 4 <= _VMEM_BUDGET_BYTES:
-            assert npc * Wc >= best_rows, (Bc, npc * Wc, best_rows)
-    # explicit override wins
-    assert auto_block_rows(Ye, Xe, n_sub, block_rows=104) == 104
-    # small grid collapses to the single-window case
-    Bs = auto_block_rows(40, 60, 6)
-    assert Bs == 40
-    # the model plumbs the override through to the pack padding and carries it
-    import orthogonalsphericalshellgrids_tpu as osg
-    from orthogonalsphericalshellgrids_tpu.models import (
-        SplitExplicitFreeSurface, make_model)
+    model, args = _setup((48, 40), 12)
+    kern = _kernel(model, (16, 32), 4)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("s",))
+    stacked = [jnp.stack([a, 2.0 * a]) for a in args]
+    f = jax.shard_map(lambda *a: tuple(x[None] for x in kern(*(y[0] for y in a))),
+                      mesh=mesh, in_specs=(P("s"),) * 5, out_specs=(P("s"),) * 3,
+                      check_vma=False)
+    got = jax.jit(f)(*stacked)
+    for shard in range(2):
+        want = kern(*(a[shard] for a in stacked))
+        for g_, w_ in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g_[shard]), np.asarray(w_))
 
-    grid = osg.TripolarGrid.make((48, 40, 1), dtype=jnp.float32,
-                                 first_pole_longitude=45.0,
-                                 north_poles_latitude=35.0)
-    m = make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=12),
-                   use_pallas=False, block_rows=16)
-    assert m.block_rows == 16
-    assert m.baro_pack.shape[1] % 16 == 0
+    mesh = make_mesh(2)
+    dm, ds = distribute(model, initial_state(model), mesh)
+    lowered = sharded_step_fn(mesh, dm).trace(ds, 60.0).lower(
+        lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text()
+
+
+def test_step_lowers_kernel_only_for_cuda():
+    """The subcycle is chosen once, by the platform the step is lowered for: the
+    Triton kernel for CUDA, the XLA scan for the CPU."""
+    model, _ = _setup((48, 40), 12)
+    state = initial_state(model)
+    traced = jax.jit(step).trace(model, state, 60.0)
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "triton" in cuda
+    assert "triton" not in cpu
