@@ -1,0 +1,8 @@
+"""Grid points advanced per second through the simulation loop (kept apart from the
+scan cells' ``gridpts_per_s``, whose runs spread far less): Nx * Ny * Nz times the steps completed in the
+window, over the window's wall seconds (host clock; the window ends when the card
+has finished its work)."""
+
+
+def read(ctx):
+    return ctx.points * ctx.window["steps"] / ctx.window["seconds"]
